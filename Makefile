@@ -1,11 +1,17 @@
 # Build/test entry points (the reference's Makefile builds bin/smith_waterman
-# and libalign.a; here the native piece is the C++ fast-IO layer and the
-# "binary" is the Python CLI).
+# and libalign.a; here the native pieces are the C++ fast-IO and traceback
+# libraries plus the CUDA kernel, and the "binary" is the Python CLI). The
+# package builds each of them at first use; these targets build ahead.
 
 all: native
 
 native:
 	$(MAKE) -C native
+
+# the CUDA kernel (needs nvcc; the package keys the output by a hash of the
+# source, see seqalign/ops/swa_cuda.py)
+cuda:
+	python -c "from seqalign.ops import swa_cuda; swa_cuda.ensure_registered()"
 
 test:
 	python -m pytest tests/ -q
@@ -14,16 +20,17 @@ test:
 test-fast:
 	python -m pytest tests/ -q -m "not slow"
 
+# on a GPU machine: the card-only tests and the end-to-end smoke run
+test-gpu:
+	JAX_PLATFORMS=cuda python -m pytest tests/ -q -m gpu
+
+smoke:
+	python chip_smoke.py
+
 bench:
 	python bench.py
-
-# Tiny-shape hardware rehearsal of the FULL two-program bench path (<60 s
-# warm). Run before every round's official capture so the official run is
-# never the first hardware execution of a changed bench (round-2 lesson).
-bench-rehearse:
-	python bench.py --rehearse
 
 clean:
 	$(MAKE) -C native clean
 
-.PHONY: all native test test-fast bench bench-rehearse clean
+.PHONY: all native cuda test test-fast test-gpu smoke bench clean

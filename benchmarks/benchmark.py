@@ -3,11 +3,11 @@
 ``Total Time:`` line, report mean +- std).
 
 The reference sweeps ``OMP_NUM_THREADS`` over its executables
-(``benchmarks/benchmark.py:15-62``); the TPU equivalent sweeps engines
-(pallas / wavefront / scan) over this package's CLI. Usage:
+(``benchmarks/benchmark.py:15-62``); this sweeps engines
+(cuda / wavefront / scan) over this package's CLI. Usage:
 
     python benchmarks/benchmark.py QUERY.fasta DB.fasta \
-        [--matrix PAM250] [--engines pallas wavefront] [--repeats 6]
+        [--matrix PAM250] [--engines cuda wavefront] [--repeats 6]
 
 Kernel-region seconds come from the CLI's ``Total Time`` line, which (like
 the reference's) excludes parsing and packing.
@@ -29,7 +29,7 @@ ENTRIES_RE = re.compile(r"^Total Entries: (\d+)", re.M)
 def run_once(query: str, db: str, matrix: str, engine: str) -> tuple[float, int]:
     out = subprocess.run(
         [
-            sys.executable, "-m", "seqalign_tpu.cli",
+            sys.executable, "-m", "seqalign.cli",
             "--substitution_matrix", matrix,
             "--engine", engine,
             "--files", query, db,
@@ -51,7 +51,7 @@ def main() -> int:
     ap.add_argument("query")
     ap.add_argument("db")
     ap.add_argument("--matrix", default="PAM250")
-    ap.add_argument("--engines", nargs="+", default=["pallas", "wavefront"])
+    ap.add_argument("--engines", nargs="+", default=["cuda", "wavefront"])
     ap.add_argument("--repeats", type=int, default=6)
     args = ap.parse_args()
 

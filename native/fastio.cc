@@ -1,12 +1,12 @@
 // fastio: native FASTA/FASTQ parsing, encoding, and lane-batch packing.
 //
-// TPU-native replacement for the reference's vendored C seq_file library
+// Native replacement for the reference's vendored C seq_file library
 // (L0 in SURVEY.md; used by the reference driver at
 // src/alignment_cmdline.c:335-457) plus the driver's per-record encode+pack
 // loops (src/alignment_cmdline.c:444-450). Exposed to Python via a plain C
 // ABI consumed with ctypes (no pybind11 in this environment).
 //
-// Semantics match seqalign_tpu.utils.fasta / packing:
+// Semantics match seqalign.utils.fasta / packing:
 //  - FASTA ('>') and FASTQ ('@') autodetected; gzip autodetected (zlib).
 //  - Sequence characters encoded a-z/A-Z -> 1..26, '*' -> 31; any other
 //    character is a fatal parse error (code -2), matching letters_to_index
@@ -14,13 +14,13 @@
 //  - pack_batch fills a '*'-padded (lb_pad, lanes) int8 buffer position-major
 //    (db[pos * lanes + lane]), the reference's lane-major layout scaled up.
 //
-// Performance notes (the TPU kernel consumes >1 Gres/s, so host ingest must
+// Performance notes (the GPU kernel consumes >1 Gres/s, so host ingest must
 // not be the pipeline's long pole):
 //  - Plain files are read with one sized fread (gzip detected by magic and
 //    routed through zlib); the encode pass writes through a raw pointer into
 //    a single pre-sized buffer instead of per-byte vector growth.
 //  - pack writes are tiled: a position-major store stream has stride `lanes`
-//    (= 1024 on TPU), i.e. one cache line touched per byte if written
+//    (hundreds of lanes), i.e. one cache line touched per byte if written
 //    directly. Records are instead gathered into an L1-resident tile and the
 //    tile's rows are flushed with contiguous copies, keeping every DRAM
 //    access sequential.

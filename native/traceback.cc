@@ -3,7 +3,7 @@
 //
 // The reference deliberately dropped traceback (score-only engine; SURVEY.md
 // §0), but the north star restores it for the best hits. The hot database
-// scan stays on the TPU (ops/swa_pallas.py); this kernel serves the O(k)
+// scan stays on the GPU (ops/swa_cuda.py); this kernel serves the O(k)
 // re-alignment phase, where per-pair latency (not batch throughput) matters.
 //
 // Recurrence identical to ops/oracle.py and the reference

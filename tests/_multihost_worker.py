@@ -6,7 +6,6 @@ the merged result to --out. Run only via the test.
 """
 
 import argparse
-import functools
 import sys
 from pathlib import Path
 
@@ -27,29 +26,21 @@ def main():
     p.add_argument("--db-cache", default=None)
     args = p.parse_args()
 
-    # The env-var route (JAX_PLATFORMS=cpu) is overridden by TPU plugin
-    # registration in some environments; the config API wins reliably.
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
-    from seqalign_tpu.models import ScoringModel, load_builtin
-    from seqalign_tpu.ops.swa_pallas import sw_pallas_stream
-    from seqalign_tpu.parallel.multihost import multihost_search
-    from seqalign_tpu.utils.fasta import read_first
+    from seqalign.models import ScoringModel, load_builtin
+    from seqalign.parallel.multihost import multihost_search
+    from seqalign.utils.fasta import read_first
 
     sc = load_builtin(
         "BLOSUM62",
         ScoringModel(gap_open=-2, gap_extend=-1, use_match_mismatch=False),
     )
     q = sc.query_indices(read_first(args.query).seq)
-    engine_fn = functools.partial(sw_pallas_stream, interpret=True)
     if args.topk:
         vals, ids, _ = multihost_search(
             q, args.db, sc,
             coordinator_address=args.coordinator,
             num_processes=args.nproc, process_id=args.pid,
-            k=args.topk, engine_fn=engine_fn, db_cache=args.db_cache,
+            k=args.topk, db_cache=args.db_cache,
         )
         np.savez(args.out, vals=vals, ids=ids)
     else:
@@ -57,7 +48,7 @@ def main():
             q, args.db, sc,
             coordinator_address=args.coordinator,
             num_processes=args.nproc, process_id=args.pid,
-            engine_fn=engine_fn, db_cache=args.db_cache,
+            db_cache=args.db_cache,
         )
         np.save(args.out, scores)
 

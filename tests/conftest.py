@@ -1,12 +1,14 @@
-"""Test configuration: run everything on CPU with 8 virtual devices.
+"""Test configuration: run on CPU with 8 virtual devices.
 
-Sharding tests need a multi-device mesh; per the project plan we validate
-multi-chip code paths on a virtual CPU mesh (the driver separately dry-runs
-the multi-chip path). Must be set before JAX initializes.
+Sharding tests need a multi-device mesh, so multi-device code paths are
+validated on a virtual CPU mesh. JAX_PLATFORMS defaults to ``cpu``; the
+GPU-marked tests run on the card with ``JAX_PLATFORMS=cuda`` (see
+tests/test_gpu.py). Must be set before JAX initializes.
 """
 
 import os
 
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 flags = os.environ.get("XLA_FLAGS", "")
 if "xla_force_host_platform_device_count" not in flags:
     os.environ["XLA_FLAGS"] = (
@@ -14,15 +16,10 @@ if "xla_force_host_platform_device_count" not in flags:
     ).strip()
 
 import jax
-
-# The env var route (JAX_PLATFORMS=cpu) is overridden by TPU plugin
-# registration in some environments; the config API wins reliably.
-jax.config.update("jax_platforms", "cpu")
-
 import numpy as np
 import pytest
 
-from seqalign_tpu.models import ScoringModel, load_builtin
+from seqalign.models import ScoringModel, load_builtin
 
 
 def pytest_collection_modifyitems(items):
@@ -32,6 +29,30 @@ def pytest_collection_modifyitems(items):
     for item in items:
         if item.get_closest_marker("slow") is None:
             item.add_marker(pytest.mark.fast)
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's backend is a GPU (decided at run time, never at
+    collection, so every xdist worker collects the same tests)."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: run with JAX_PLATFORMS=cuda on the card")
+
+
+@pytest.fixture
+def cuda_standin(monkeypatch):
+    """Run the CUDA engine's wrapper on CPU with the kernel replaced by its
+    NumPy model of the same loop nest (swa_cuda.reference_kernel)."""
+    import functools
+
+    from seqalign.ops import swa_cuda
+
+    monkeypatch.setattr(
+        swa_cuda, "compile_kernel",
+        lambda *a, go, ge: functools.partial(
+            swa_cuda.reference_kernel, go=go, ge=ge
+        ),
+    )
 
 
 @pytest.fixture(scope="session")

@@ -7,9 +7,9 @@ fixtures: every engine must produce *identical integer scores*.
 import numpy as np
 import pytest
 
-from seqalign_tpu.models import PAD_INDEX, ScoringModel, encode, sw_default_scoring
-from seqalign_tpu.ops.oracle import sw_score_batch, sw_score_single
-from seqalign_tpu.ops.swa_xla import make_profile, sw_scan, sw_wavefront
+from seqalign.models import PAD_INDEX, ScoringModel, encode, sw_default_scoring
+from seqalign.ops.oracle import sw_score_batch, sw_score_single
+from seqalign.ops.swa_xla import make_profile, sw_scan, sw_wavefront
 
 from conftest import random_protein
 

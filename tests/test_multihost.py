@@ -4,7 +4,7 @@ The reference's only coarse parallelism is an OpenMP loop
 (``src/alignment_cmdline.c:504-507``); `multihost_search` is its pod-scale
 replacement. These tests launch two actual OS processes on the CPU backend
 (one coordinator + one worker), stripe a FASTA database between them, and
-assert the DCN-merged result equals the single-process search bit-for-bit.
+assert the merged result equals the single-process search bit-for-bit.
 """
 
 import os
@@ -81,7 +81,7 @@ class TestMultihost:
     def test_two_process_full_scores(self, rng, blosum62, tmp_path):
         qp, dp = _write_fixtures(rng, tmp_path)
         outs = _run_workers(tmp_path, qp, dp, nproc=2)
-        from seqalign_tpu.pipeline import search_files
+        from seqalign.pipeline import search_files
 
         want = search_files(qp, dp, blosum62, engine="wavefront").scores
         for out in outs:  # every host holds the identical global vector
@@ -92,7 +92,7 @@ class TestMultihost:
         qp, dp = _write_fixtures(rng, tmp_path, n_records=400)
         k = 7
         outs = _run_workers(tmp_path, qp, dp, nproc=2, topk=k)
-        from seqalign_tpu.pipeline import search_files
+        from seqalign.pipeline import search_files
 
         want = search_files(qp, dp, blosum62, engine="wavefront").scores
         best = np.sort(want)[::-1][:k]
@@ -110,12 +110,12 @@ class TestMultihost:
         port = _free_port()
         coord = f"127.0.0.1:{port}"
         env = dict(os.environ)
-        env["SEQALIGN_PLATFORM"] = "cpu"
+        env["JAX_PLATFORMS"] = "cpu"
         env.pop("XLA_FLAGS", None)
         procs = [
             subprocess.Popen(
                 [
-                    sys.executable, "-m", "seqalign_tpu.cli",
+                    sys.executable, "-m", "seqalign.cli",
                     "--substitution_matrix", "BLOSUM62",
                     "--hosts", "2", "--host-id", str(pid),
                     "--coordinator", coord,
@@ -136,7 +136,7 @@ class TestMultihost:
                 raise
             assert p.returncode == 0, f"CLI host failed:\n{err[-3000:]}"
             outs.append(out)
-        from seqalign_tpu.pipeline import search_files
+        from seqalign.pipeline import search_files
 
         want = search_files(qp, dp, blosum62, engine="wavefront").scores
         got = [
@@ -152,8 +152,8 @@ class TestMultihost:
         record views, multihost.py) and the merged result equals the
         single-process search — including cache-only (FASTA deleted), so
         neither worker can be silently re-parsing the FASTA."""
-        from seqalign_tpu.pipeline import search_files
-        from seqalign_tpu.utils.native_io import parse_file_cached
+        from seqalign.pipeline import search_files
+        from seqalign.utils.native_io import parse_file_cached
 
         qp, dp = _write_fixtures(rng, tmp_path, n_records=500)
         want = search_files(qp, dp, blosum62, engine="wavefront").scores
@@ -166,43 +166,36 @@ class TestMultihost:
 
     def test_single_process_path(self, rng, blosum62, tmp_path):
         """nproc=1 short-circuits the collective but uses the same driver."""
-        import functools
-
-        from seqalign_tpu.ops.swa_pallas import sw_pallas_stream
-        from seqalign_tpu.parallel.multihost import multihost_search
-        from seqalign_tpu.pipeline import search_files
-        from seqalign_tpu.utils.fasta import read_first
+        from seqalign.parallel.multihost import multihost_search
+        from seqalign.pipeline import search_files
+        from seqalign.utils.fasta import read_first
 
         qp, dp = _write_fixtures(rng, tmp_path, n_records=200)
         q = blosum62.query_indices(read_first(qp).seq)
-        engine_fn = functools.partial(sw_pallas_stream, interpret=True)
-        got, _ = multihost_search(q, dp, blosum62, engine_fn=engine_fn)
+        got, _ = multihost_search(q, dp, blosum62)
         want = search_files(qp, dp, blosum62, engine="wavefront").scores
         np.testing.assert_array_equal(got, want)
 
     def test_single_process_db_cache(self, rng, blosum62, tmp_path):
         """db_cache stripe (mmapped .sqc views) scores identically to the
         FASTA-reader stripe."""
-        import functools
         import os
 
-        from seqalign_tpu.ops.swa_pallas import sw_pallas_stream
-        from seqalign_tpu.parallel.multihost import multihost_search
-        from seqalign_tpu.utils.fasta import read_first
+        from seqalign.parallel.multihost import multihost_search
+        from seqalign.utils.fasta import read_first
 
         qp, dp = _write_fixtures(rng, tmp_path, n_records=150)
         q = blosum62.query_indices(read_first(qp).seq)
-        engine_fn = functools.partial(sw_pallas_stream, interpret=True)
-        plain, _ = multihost_search(q, dp, blosum62, engine_fn=engine_fn)
+        plain, _ = multihost_search(q, dp, blosum62)
         cp = str(tmp_path / "db.sqc")
         cached, _ = multihost_search(
-            q, dp, blosum62, engine_fn=engine_fn, db_cache=cp
+            q, dp, blosum62, db_cache=cp
         )
         assert os.path.exists(cp)
         np.testing.assert_array_equal(cached, plain)
         # warm: served from the cache alone
         os.remove(dp)
         warm, _ = multihost_search(
-            q, dp, blosum62, engine_fn=engine_fn, db_cache=cp
+            q, dp, blosum62, db_cache=cp
         )
         np.testing.assert_array_equal(warm, plain)

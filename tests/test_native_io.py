@@ -6,9 +6,9 @@ import gzip
 import numpy as np
 import pytest
 
-from seqalign_tpu.models import PAD_INDEX, encode
-from seqalign_tpu.utils import native_io
-from seqalign_tpu.utils.fasta import read_fasta
+from seqalign.models import PAD_INDEX, encode
+from seqalign.utils import native_io
+from seqalign.utils.fasta import read_fasta
 
 from conftest import random_protein
 
@@ -61,7 +61,7 @@ class TestNativeParse:
     def test_illegal_char(self, tmp_path):
         p = tmp_path / "bad.fa"
         p.write_text(">x\nAC-GT\n")
-        from seqalign_tpu.models import AlphabetError
+        from seqalign.models import AlphabetError
 
         with pytest.raises(AlphabetError):
             native_io.parse_file(str(p))
@@ -115,7 +115,7 @@ class TestStreamChunks:
     def test_illegal_char(self, tmp_path):
         p = tmp_path / "bad.fa"
         p.write_text(">x\nAC-GT\n")
-        from seqalign_tpu.models import AlphabetError
+        from seqalign.models import AlphabetError
 
         with pytest.raises(AlphabetError):
             list(native_io.stream_chunks(str(p), 4))
@@ -139,7 +139,7 @@ class TestNativePack:
         lb_pad = int(db.lengths.max()) + 5
         got = native_io.pack_batch(db, order, lanes=8, lb_pad=lb_pad)
         # python fallback path
-        import seqalign_tpu.utils.native_io as nio
+        import seqalign.utils.native_io as nio
 
         lib, nio._lib = nio._lib, None
         try:

@@ -5,9 +5,9 @@ import pytest
 
 import jax
 
-from seqalign_tpu.models import encode
-from seqalign_tpu.ops.swa_xla import make_profile, sw_wavefront
-from seqalign_tpu.parallel import (
+from seqalign.models import encode
+from seqalign.ops.swa_xla import make_profile, sw_wavefront
+from seqalign.parallel import (
     host_stripe,
     make_mesh,
     merge_topk_candidates,
@@ -95,7 +95,7 @@ class TestMultiDevice:
     """Data-parallel multi-device search (stream kernel per device)."""
 
     def test_deal_chunks_balances(self):
-        from seqalign_tpu.parallel.multidevice import deal_chunks
+        from seqalign.parallel.multidevice import deal_chunks
 
         rng = np.random.default_rng(3)
         lengths = np.sort(rng.integers(10, 1000, 64 * 1024))[::-1]
@@ -106,16 +106,19 @@ class TestMultiDevice:
         assert max(totals) / min(totals) < 1.05
 
     @pytest.mark.slow
-    def test_multi_device_search_interpret(self, rng, blosum62, monkeypatch):
-        import functools
-
-        import seqalign_tpu.ops.swa_pallas as sp
-        from seqalign_tpu.models import encode
-        from seqalign_tpu.ops.swa_xla import make_profile
-        from seqalign_tpu.parallel.multidevice import multi_device_search
-        from seqalign_tpu.pipeline import _db_from_encoded, search_encoded
+    def test_multi_device_search_interpret(
+        self, rng, blosum62, cuda_standin, monkeypatch
+    ):
+        """The CUDA path of multi_device_search (deal, per-device pack and
+        dispatch, scatter) over 2 CPU devices, kernel = NumPy model."""
+        from seqalign import pipeline
+        from seqalign.models import encode
+        from seqalign.ops.swa_xla import make_profile
+        from seqalign.parallel.multidevice import multi_device_search
+        from seqalign.pipeline import _db_from_encoded, search_encoded
         from conftest import random_protein
 
+        monkeypatch.setattr(pipeline, "choose_engine", lambda *a, **k: "cuda")
         sc = blosum62
         q = sc.query_indices(random_protein(rng, 11))
         prof = make_profile(sc.table, q)
@@ -124,31 +127,48 @@ class TestMultiDevice:
             for _ in range(4000)
         ]
         db = _db_from_encoded(encoded)
-        import jax
-
-        def engine(p, s, f, go, ge, **kw):
-            return sp.sw_pallas_stream(p, s, f, go, ge, interpret=True, **kw)
-
         got, _ = multi_device_search(
-            prof,
-            db,
-            sc.gap_open_total,
-            sc.gap_extend,
+            prof, db, sc.gap_open_total, sc.gap_extend,
             devices=jax.devices()[:2],
-            engine_fn=engine,
         )
         want, _ = search_encoded(q, encoded, sc, engine="wavefront")
         np.testing.assert_array_equal(got, want)
 
+    def test_multi_device_search_wavefront(self, rng, blosum62):
+        """On CPU devices multi_device_search picks the wavefront."""
+        from seqalign.models import encode
+        from seqalign.ops.oracle import sw_score_batch
+        from seqalign.ops.swa_xla import make_profile
+        from seqalign.parallel.multidevice import multi_device_search
+        from seqalign.pipeline import _db_from_encoded
+        from conftest import random_protein
+
+        sc = blosum62
+        qs = [sc.query_indices(random_protein(rng, 9)) for _ in range(2)]
+        encoded = [
+            encode(random_protein(rng, int(rng.integers(1, 30))))
+            for _ in range(1500)
+        ]
+        profs = np.stack([make_profile(sc.table, q) for q in qs])
+        got, _ = multi_device_search(
+            profs, _db_from_encoded(encoded), sc.gap_open_total,
+            sc.gap_extend, devices=jax.devices()[:3],
+        )
+        for k, q in enumerate(qs):
+            want = sw_score_batch(q, encoded, sc.table, sc.gap_open,
+                                  sc.gap_extend)
+            np.testing.assert_array_equal(got[k], want)
+
 
 class TestLongPair:
     """Sequence-parallel single-pair alignment: query rows sharded across
-    the mesh, stripe boundaries exchanged over ICI (parallel/longpair.py) —
+    the mesh, stripe boundaries exchanged between devices
+    (parallel/longpair.py) —
     the SURVEY §2 context-parallel-like stretch row."""
 
     def test_matches_wavefront(self, rng, blosum62, mesh8):
-        from seqalign_tpu.ops.swa_xla import make_profile, sw_wavefront
-        from seqalign_tpu.parallel.longpair import sw_longpair
+        from seqalign.ops.swa_xla import make_profile, sw_wavefront
+        from seqalign.parallel.longpair import sw_longpair
         from conftest import random_protein
 
         sc = blosum62
@@ -175,8 +195,8 @@ class TestLongPair:
         import jax
         from jax.sharding import Mesh
 
-        from seqalign_tpu.ops.swa_xla import make_profile, sw_wavefront
-        from seqalign_tpu.parallel.longpair import sw_longpair
+        from seqalign.ops.swa_xla import make_profile, sw_wavefront
+        from seqalign.parallel.longpair import sw_longpair
         from conftest import random_protein
 
         sc = blosum62
@@ -206,9 +226,9 @@ class TestLongPair:
         """Degenerate 1-device mesh: the pipeline reduces to plain blocks."""
         import jax
 
-        from seqalign_tpu.ops.swa_xla import make_profile, sw_wavefront
-        from seqalign_tpu.parallel.longpair import sw_longpair
-        from seqalign_tpu.parallel.sharding import make_mesh
+        from seqalign.ops.swa_xla import make_profile, sw_wavefront
+        from seqalign.parallel.longpair import sw_longpair
+        from seqalign.parallel.sharding import make_mesh
         from conftest import random_protein
 
         sc = blosum62

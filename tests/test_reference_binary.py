@@ -86,8 +86,8 @@ def test_scores_match_reference_binary(
     assert len(ref_scores) == n
 
     # Recompute with our oracle on the identical binary workload.
-    from seqalign_tpu.models import ScoringModel, load_builtin
-    from seqalign_tpu.ops.oracle import sw_score_single
+    from seqalign.models import ScoringModel, load_builtin
+    from seqalign.ops.oracle import sw_score_single
 
     sc = load_builtin(
         matrix,
@@ -154,10 +154,10 @@ def test_scores_match_shipped_oracle_binary(matrix, qlen, seed):
     verify equals our score being < the threshold the binary applied."""
     import re
 
-    from seqalign_tpu.models import ScoringModel, load_builtin
-    from seqalign_tpu.models.alphabet import encode
-    from seqalign_tpu.models.scoring import sw_default_scoring
-    from seqalign_tpu.ops.oracle import sw_score_single
+    from seqalign.models import ScoringModel, load_builtin
+    from seqalign.models.alphabet import encode
+    from seqalign.models.scoring import sw_default_scoring
+    from seqalign.ops.oracle import sw_score_single
 
     rng = np.random.default_rng(seed)
     aas = "ACDEFGHIKLMNPQRSTVWY"
@@ -234,7 +234,7 @@ def test_random_matrix_differential(ref_binary, tmp_path, seed):
     ]
     assert len(ref_scores) == n
 
-    from seqalign_tpu.ops.oracle import sw_score_single
+    from seqalign.ops.oracle import sw_score_single
 
     with open(db_bin, "rb") as f:
         nn = int(np.frombuffer(f.read(8), np.int64)[0])

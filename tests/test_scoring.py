@@ -5,7 +5,7 @@ import gzip
 import numpy as np
 import pytest
 
-from seqalign_tpu.models import (
+from seqalign.models import (
     ALPHABET_SIZE,
     PAD_INDEX,
     AlphabetError,
@@ -80,7 +80,7 @@ class TestBuiltinMatrices:
                     gap_open=-2, gap_extend=-1, use_match_mismatch=False
                 ),
             )
-            from seqalign_tpu.models import encode
+            from seqalign.models import encode
 
             # '*'-free queries are padding-safe ...
             assert sc.padding_safe_for_query(encode("ACDEFGHIKLMNPQRSTVWYXBZ"))
@@ -148,7 +148,7 @@ class TestMatrixFileLoader:
     def test_bad_separator(self, tmp_path):
         path = tmp_path / "bad.txt"
         path.write_text("1A1C\nA,1,2\n")
-        from seqalign_tpu.models import MatrixFormatError
+        from seqalign.models import MatrixFormatError
 
         with pytest.raises(MatrixFormatError):
             load_matrix_file(

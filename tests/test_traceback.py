@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from seqalign_tpu.models import ScoringModel, encode, sw_default_scoring
-from seqalign_tpu.ops.oracle import sw_score_single
-from seqalign_tpu.ops.traceback import sw_traceback, topk_alignments
+from seqalign.models import ScoringModel, encode, sw_default_scoring
+from seqalign.ops.oracle import sw_score_single
+from seqalign.ops.traceback import sw_traceback, topk_alignments
 
 from conftest import random_protein
 
@@ -84,7 +84,7 @@ class TestTraceback:
         assert aln.cigar == ""
 
     def test_topk(self, rng, blosum62):
-        from seqalign_tpu.pipeline import _db_from_encoded
+        from seqalign.pipeline import _db_from_encoded
 
         sc = blosum62
         q = encode(random_protein(rng, 20))
@@ -114,8 +114,8 @@ class TestNativeEnvelope:
         """table[q, d] orientation: an asymmetric matrix must score
         identically through native and NumPy paths (round-2 review bug:
         the native kernel read table[d][q])."""
-        import seqalign_tpu.ops.traceback as tbm
-        from seqalign_tpu.ops.oracle import sw_score_single
+        import seqalign.ops.traceback as tbm
+        from seqalign.ops.oracle import sw_score_single
 
         for trial in range(10):
             table = rng.integers(-8, 12, (32, 32)).astype(np.int32)
@@ -129,8 +129,8 @@ class TestNativeEnvelope:
     def test_large_scores_skip_native(self, rng):
         """Scores beyond int8 (allowed up to the engines' 256 envelope)
         must not be wrapped by the native int8 cast."""
-        import seqalign_tpu.ops.traceback as tbm
-        from seqalign_tpu.ops.oracle import sw_score_single
+        import seqalign.ops.traceback as tbm
+        from seqalign.ops.oracle import sw_score_single
 
         table = np.full((32, 32), -5, dtype=np.int32)
         np.fill_diagonal(table, 200)  # > int8 max, < bf16-exact 256
@@ -147,7 +147,7 @@ class TestLocalizedTraceback:
 
     @pytest.mark.parametrize("trial", range(6))
     def test_matches_direct(self, rng, blosum62, monkeypatch, trial):
-        import seqalign_tpu.ops.traceback as tbm
+        import seqalign.ops.traceback as tbm
 
         sc = blosum62
         q = encode(random_protein(rng, int(rng.integers(10, 60))))
@@ -169,7 +169,7 @@ class TestLocalizedTraceback:
         the rectangle, and Myers-Miller handles whole-extent rectangles.
         Thresholds are scaled down so the test runs in seconds; the
         routing and algorithms are exactly the production ones."""
-        import seqalign_tpu.ops.traceback as tbm
+        import seqalign.ops.traceback as tbm
 
         sc = blosum62
         monkeypatch.setattr(tbm, "_DIRECT_CELLS", 1 << 16)
@@ -194,7 +194,7 @@ class TestLocalizedTraceback:
     @pytest.mark.parametrize("trial", range(4))
     def test_myers_miller_matches_direct(self, rng, blosum62, monkeypatch, trial):
         """Force the Myers-Miller tier on modest pairs; bit-equal scores."""
-        import seqalign_tpu.ops.traceback as tbm
+        import seqalign.ops.traceback as tbm
 
         sc = blosum62
         monkeypatch.setattr(tbm, "_DIRECT_CELLS", 1 << 10)
@@ -213,7 +213,7 @@ class TestLocalizedTraceback:
         assert aln.score == direct.score
 
     def test_numpy_fallback_matches(self, rng, blosum62, monkeypatch):
-        import seqalign_tpu.ops.traceback as tbm
+        import seqalign.ops.traceback as tbm
 
         if not tbm.native_available():
             pytest.skip("native library not built")
@@ -223,7 +223,7 @@ class TestLocalizedTraceback:
         monkeypatch.setattr(tbm, "_DIRECT_CELLS", 0)
         a = sw_traceback(q, d, sc.table, sc.gap_open, sc.gap_extend)
         monkeypatch.setattr(tbm, "_lib", None)
-        monkeypatch.setattr(tbm, "_LIB_PATH", "/nonexistent")
+        monkeypatch.setattr(tbm, "_tried", True)  # no native library
         b = sw_traceback(q, d, sc.table, sc.gap_open, sc.gap_extend)
         assert (a.score, a.query_start, a.db_start, a.cigar) == (
             b.score, b.query_start, b.db_start, b.cigar
@@ -231,7 +231,7 @@ class TestLocalizedTraceback:
 
 
 def test_align_pair(blosum62):
-    from seqalign_tpu.ops.traceback import align_pair
+    from seqalign.ops.traceback import align_pair
 
     aln = align_pair("HEAGAWGHEE", "PAWHEAE", blosum62)
     assert aln.score > 0

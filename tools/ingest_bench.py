@@ -1,14 +1,14 @@
 """Host-ingest benchmark: FASTA parse+encode and stream-pack rates.
 
-The TPU kernel consumes database residues far faster than a naive host
+The GPU kernel consumes database residues far faster than a naive host
 loop can produce them, so single-shot (cold database) search latency is
 set by this path, not the device. This tool measures the three stages the
 pipeline pays before the first dispatch, on a synthetic database whose
 record-length distribution mimics a protein DB:
 
   parse   — FASTA -> encoded flat buffer (native/fastio.cc fastio_parse)
-  pack    — flat buffer -> NW segmented window streams (pack_streams,
-            which calls the tiled/SIMD fastio_pack per slot)
+  pack    — flat buffer -> the CUDA kernel's warp groups
+            (swa_cuda.pack_groups, which calls fastio_pack per group)
   ingest  — harmonic combination (one pass of each, as a cold search pays)
 
 Counterpart in the reference: the seq_file read + per-record encode loop
@@ -32,8 +32,8 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from seqalign_tpu.utils import native_io  # noqa: E402
-from seqalign_tpu.utils.packing import pack_streams  # noqa: E402
+from seqalign.utils import native_io  # noqa: E402
+from seqalign.ops.swa_cuda import pack_groups  # noqa: E402
 
 AAS = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", dtype=np.uint8)
 
@@ -71,7 +71,6 @@ def main() -> int:
     ap.add_argument("--records", type=int, default=200_000)
     ap.add_argument("--wrap", type=int, default=0, help="wrap FASTA at N cols")
     ap.add_argument("--reps", type=int, default=3)
-    ap.add_argument("--nw", type=int, default=4, help="stream count for pack")
     args = ap.parse_args()
 
     tmp = None
@@ -95,7 +94,7 @@ def main() -> int:
         t_parse = best_of(lambda: native_io.parse_file(path), args.reps)
         order = np.argsort(-db.lengths, kind="stable")
         t_pack = best_of(
-            lambda: pack_streams(db, order, nw=args.nw, win=1024, jb=4),
+            lambda: pack_groups(db, order),
             args.reps,
         )
         t_ingest = t_parse + t_pack

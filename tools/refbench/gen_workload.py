@@ -15,8 +15,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
 import numpy as np
 
-from seqalign_tpu.models import ScoringModel, load_builtin
-from seqalign_tpu.models.alphabet import encode
+from seqalign.models import ScoringModel, load_builtin
+from seqalign.models.alphabet import encode
 
 AA20 = np.array(encode("ACDEFGHIKLMNPQRSTVWY"), dtype=np.int8)
 PAM_ALPHA = "ARNDCQEGHILKMFPSTWYVBZX*"

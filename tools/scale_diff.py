@@ -1,23 +1,19 @@
-"""At-scale differential: TPU production path vs the reference's own kernel.
+"""At-scale differential: the CUDA engine vs the reference's own kernel.
 
 Scores an N-record synthetic Swiss-Prot-like workload (tools/refbench/
 gen_workload.py) twice — once with the reference's AVX2 kernel compiled
 from its unmodified sources (src/alignment.c via tools/refbench/driver.c)
-and once with THIS framework's production Pallas stream path on the TPU —
-and diffs every score bit-for-bit.
+and once with this package's CUDA engine on the GPU, through
+``pipeline.search_database`` — and diffs every score bit-for-bit.
 
 This is the scale extension of tests/test_reference_binary.py (64-record
 bit-exact differential): same ground truth, 48,000 records by default.
-Round-5 run: 48,000 records, PAM250, qlen=144 — 0 mismatches, identical
-checksums (docs/ROUND5.md).
+Long queries run in strips like any other (no query-length cap).
 
-Queries longer than the flat kernel's VMEM rows route to the striped
-(unbounded-query) production automatically, mirroring the pipeline; the
-round-5 striped run (lq=35,000 x 256 records) was also 0 mismatches.
-
-Usage (TPU host; builds the reference binary if missing):
+Usage (GPU host with the reference sources at ``REF`` below; builds the
+reference binary under build/ if missing):
   python tools/scale_diff.py [n_records] [--matrix PAM250] [--go -2 --ge -1]
-  python tools/scale_diff.py 256 --qlen 35000     # striped path
+  python tools/scale_diff.py 256 --qlen 35000
 """
 
 import argparse
@@ -65,17 +61,15 @@ def main() -> int:
                    "differential in tests/test_reference_binary.py")
     args = p.parse_args()
 
-    from seqalign_tpu.pipeline import _enable_compile_cache
-
-    _enable_compile_cache()
-
     sys.path.insert(0, str(REPO / "tools/refbench"))
     import gen_workload
 
-    binary = Path("/tmp/refbench_scale")
+    work = REPO / "build" / "scale_diff"
+    work.mkdir(parents=True, exist_ok=True)
+    binary = work / "refbench"
     if not binary.exists():
         build_refbench(binary)
-    db_bin, mat = "/tmp/scale_db.bin", "/tmp/scale_matrix.txt"
+    db_bin, mat = str(work / "db.bin"), str(work / "matrix.txt")
     gen_workload.write_workload(db_bin, n=args.n, query_len=args.qlen,
                                 seed=args.seed)
     if args.random_matrix is not None:
@@ -96,16 +90,8 @@ def main() -> int:
     assert len(ref) == args.n, (len(ref), args.n)
     print(out.splitlines()[0])
 
-    from seqalign_tpu.models import ScoringModel, load_builtin
-    from seqalign_tpu.ops.swa_pallas import (
-        STRIPE_ROWS,
-        choose_config,
-        sw_pallas_stream,
-        sw_pallas_stream_striped,
-    )
-    from seqalign_tpu.ops.swa_xla import make_profile
-    from seqalign_tpu.pipeline import _db_from_encoded
-    from seqalign_tpu.utils.packing import pack_streams
+    from seqalign.models import ScoringModel, load_builtin
+    from seqalign.pipeline import _db_from_encoded, search_database
 
     if rnd_table is not None:
         sc = ScoringModel(gap_open=args.go, gap_extend=args.ge,
@@ -124,32 +110,7 @@ def main() -> int:
         lens = np.frombuffer(f.read(8 * n), np.int64)
         seqs = [np.frombuffer(f.read(int(L)), np.int8) for L in lens]
 
-    prof = make_profile(sc.table, q)
-    go, ge = sc.gap_open_total, sc.gap_extend
-    pmax = float(np.max(np.abs(prof.astype(np.float64) - go)))
-    cfg = choose_config(qlen, reserve=(1 << 20), max_abs_bias=pmax)
-    striped = cfg is None  # query too tall for the flat kernel: the
-    # pipeline routes it to the striped production — mirror that here
-    if striped:
-        cfg = choose_config(STRIPE_ROWS, reserve=(1 << 20),
-                            max_abs_bias=pmax, striped=True)
-    print("production cfg:", cfg, "(striped)" if striped else "")
-    db = _db_from_encoded(seqs)
-    order = np.argsort(-db.lengths, kind="stable")
-    pack = pack_streams(db, order, cfg.nw, win=1024, jb=cfg.jb, grain=16)
-    kw = dict(nslots=len(pack.slot_ids), nw=cfg.nw, jb=cfg.jb, ui=cfg.ui,
-              ic=cfg.ic, pipe=cfg.pipe, pack=cfg.pack, upk=cfg.upk,
-              sdt=cfg.sdt)
-    if striped:
-        res = np.asarray(sw_pallas_stream_striped(
-            prof, pack.streams, pack.fs, go, ge,
-            stripe_rows=STRIPE_ROWS, **kw))
-    else:
-        res = np.asarray(sw_pallas_stream(
-            prof, pack.streams, pack.fs, go, ge, **kw))
-    scores = np.zeros(n, np.int32)
-    for slot, ids in enumerate(pack.slot_ids):
-        scores[ids] = res[slot][: len(ids)]
+    scores, _ = search_database(q, _db_from_encoded(seqs), sc, engine="cuda")
 
     bad = np.flatnonzero(scores != ref)
     print(f"checksum ours={int(scores.sum())} ref={int(ref.sum())}")
