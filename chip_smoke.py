@@ -13,7 +13,8 @@ user calls (``cli.main``, ``pipeline``), in this process. Phases:
 4. main path: a seeded Swiss-Prot-scale FASTA (565,247 records) searched
    through the CLI at query lengths 144 and 17 (PAM250, gap -2/-1); the
    scores must equal the XLA wavefront's on the GPU over a stratified
-   sample and the NumPy oracle's on a random sample, exactly;
+   sample (with the 1,000 longest records, up to 35,213 residues) and the
+   NumPy oracle's on a random sample plus the longest record, exactly;
 5. long queries (1,000 and 5,478 residues) on a slice of the database;
 6. other CLI paths: --align, a multi-record query file, --db-cache with
    --stream-chunk; each equal to the plain run;
@@ -148,15 +149,18 @@ def one_card(card: str) -> None:
 
     order = np.argsort(-db.lengths, kind="stable")
     pack = swa_cuda.pack_groups(db, order)
-    dev = [jax.device_put(x) for x in (pack.db, pack.row_off, pack.lens)]
+    dev = [jax.device_put(x) for x in pack.arrays]
+    nlong = int((pack.slots < len(pack.long_off) - 1).sum())
     for lq in (144, 17):
-        prof = jax.device_put(swa_cuda.strip_profile(
-            make_profile(sc.table, sc.query_indices(queries[lq])), go))
+        profs = [jax.device_put(x) for x in swa_cuda.query_profiles(
+            make_profile(sc.table, sc.query_indices(queries[lq])), go)]
         t0 = time.perf_counter()
         compiled = swa_cuda._ffi_score.lower(
-            prof, *dev, go=go, ge=ge).compile()
+            *profs, *dev, go=go, ge=ge).compile()
         say("compile", f"lq={lq} strips={swa_cuda.strip_shape(lq)} "
-            f"groups={len(pack.row_off) - 1} in "
+            f"groups={len(pack.row_off) - 1} (bucketed), long records "
+            f"{nlong} (> {swa_cuda.LONG_RECORD}) in passes x rows "
+            f"{swa_cuda.long_shape(lq)}, in "
             f"{time.perf_counter() - t0:.2f}s; memory_analysis: "
             f"{compiled.memory_analysis()}")
     del dev, pack
@@ -165,7 +169,8 @@ def one_card(card: str) -> None:
     plain = {}
     sample = stratified(db, every=100, longest=1000)
     rng = np.random.default_rng(7)
-    oracle_ids = rng.choice(db.n, 250, replace=False)
+    longest = int(np.argmax(db.lengths))
+    oracle_ids = np.append(rng.choice(db.n, 250, replace=False), longest)
     for lq in (144, 17):
         qf = write_query(WORK / f"q{lq}.fa", [queries[lq]])
         out, kt, wall = run_cli([*GAPS, "--files", qf, db_path])
@@ -183,7 +188,8 @@ def one_card(card: str) -> None:
                     scores[sample], want)
         want = sw_score_batch(q, [db.record(int(i)) for i in oracle_ids],
                               sc.table, sc.gap_open, sc.gap_extend)
-        check_equal("main", f"lq={lq} vs NumPy oracle, random sample",
+        check_equal("main", f"lq={lq} vs NumPy oracle, random sample and "
+                    f"the longest record ({int(db.lengths[longest])})",
                     scores[oracle_ids], want)
 
     # 5. long queries on a slice

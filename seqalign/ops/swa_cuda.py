@@ -1,10 +1,13 @@
 """Smith-Waterman database scoring on an NVIDIA Hopper GPU.
 
 The DP kernel is CUDA (``native/swa_cuda.cu``), compiled for ``sm_90a`` at
-first use and called through ``jax.ffi``. This module owns everything
-around it: the build, the packing of records into warp groups, the striped
-query profile, the call, and :func:`reference_kernel`, a NumPy model of the
-kernel's own loop nest that the CPU tests run in its place.
+first use and called through ``jax.ffi``. Records up to ``LONG_RECORD``
+residues get one thread each, in warp groups of similar length; longer
+ones get a warp each, the lanes splitting the query's rows, so that the
+longest record does not set the kernel's time. This module owns
+everything around the kernels: the build, the packing, the two query
+profiles, the call, and :func:`reference_kernel`, a NumPy model of the
+kernels' own loop nests that the CPU tests run in their place.
 
 **The G-form recurrence.** The reference's formulation
 (``src/alignment.c:122-161``, floors included) is:
@@ -37,6 +40,7 @@ cell is then 4 adds and 6 maxes, issued as 2 ``__viaddmax_s32``, 1
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import hashlib
@@ -51,9 +55,15 @@ from ..utils.native_build import BUILD, NATIVE, make
 
 LANES = 32  # records per group: one warp, one record per thread
 STRIP_HEIGHTS = (4, 8, 12, 16, 20, 24, 28, 32, 48)  # compiled in .cu
-# Tallest strip: 48 rows (lq=144 in 3 strips) beat 32; 64 rows ran slower
-# than 32 at lq=1000 (register pressure).
+# Tallest strip: 48 rows beat 32 and 24 at lq=144 and lq=1000 over the
+# database's body (bench.py --kernel, medians of 7; docs/DESIGN.md); 64
+# rows ran slower than 32 at lq=1000 (register pressure).
 MAX_STRIP = 48
+# Records longer than this get a warp each (sw_long_kernel) instead of a
+# thread: one thread's walk down a 35,000-residue record would otherwise
+# set the whole kernel's time.
+LONG_RECORD = 3072
+LONG_HEIGHTS = range(1, 9)  # rows per lane in the long kernel, in .cu
 PAD_ROW = -(1 << 29)  # profile value of rows past the query's end
 # Residues per dispatch. The boundary scratch of a striped query is
 # 8 bytes per packed residue, so this bounds it at about 2.5 GB.
@@ -74,61 +84,130 @@ def strip_shape(lq: int, max_rows: int = MAX_STRIP) -> tuple[int, int]:
     return n, min(h for h in STRIP_HEIGHTS if h >= need)
 
 
+def long_shape(lq: int) -> tuple[int, int]:
+    """(number of passes, rows per lane) of the long kernel: the fewest
+    passes of 32 lanes x at most 8 rows, then the fewest rows per lane."""
+    top = LANES * max(LONG_HEIGHTS)
+    n = max(1, -(-lq // top))
+    return n, max(1, -(-lq // (n * LANES)))
+
+
+def _biased(profile, go, rows):
+    profile = np.asarray(profile, dtype=np.int32)
+    p = np.full((rows, 32), PAD_ROW, dtype=np.int32)
+    p[: profile.shape[0]] = profile - np.int32(go)
+    return p
+
+
 def strip_profile(
     profile: np.ndarray, go: int, max_rows: int = MAX_STRIP
 ) -> np.ndarray:
     """(Lq, 32) profile -> (nstrips, 32, R) biased profile P' = P - go,
     residue-major within each strip; padded rows hold PAD_ROW."""
-    profile = np.asarray(profile, dtype=np.int32)
-    lq = profile.shape[0]
-    n, r = strip_shape(lq, max_rows)
-    p = np.full((n * r, 32), PAD_ROW, dtype=np.int32)
-    p[:lq] = profile - np.int32(go)
+    n, r = strip_shape(np.shape(profile)[0], max_rows)
+    p = _biased(profile, go, n * r)
     return np.ascontiguousarray(p.reshape(n, r, 32).transpose(0, 2, 1))
+
+
+def long_profile(profile: np.ndarray, go: int) -> np.ndarray:
+    """(Lq, 32) profile -> (npasses, 32 * R, 32) biased profile for the
+    long kernel, row-major; padded rows hold PAD_ROW."""
+    n, r = long_shape(np.shape(profile)[0])
+    return _biased(profile, go, n * LANES * r).reshape(n, LANES * r, 32)
+
+
+def query_profiles(profile, go: int, max_rows: int = MAX_STRIP):
+    """Both kernels' profiles of one query: the kernel's first two
+    arguments."""
+    return strip_profile(profile, go, max_rows), long_profile(profile, go)
 
 
 @dataclasses.dataclass
 class GroupPack:
-    """Records packed in warp groups, the kernel's input layout.
+    """Records packed for the kernel.
 
-    Group g holds records ``ids[32g : 32g+32]`` in rows
+    Records up to ``LONG_RECORD`` residues go in warp groups: group g holds
+    ``ids[nlong + 32g : nlong + 32g + 32]`` in rows
     ``row_off[g] : row_off[g+1]`` of ``db`` viewed as (rows, 32), position-
     major and lane-minor ('*'-padded, as ``native_io.pack_batch`` writes).
+    Longer records, ``ids[:nlong]``, lie back to back in ``long_db`` at
+    ``long_off``. The kernel's output holds ``len(long_off) - 1`` long
+    scores, then one score per group lane; record ``ids[i]``'s score is at
+    ``slots[i]``.
     """
 
     db: np.ndarray  # (rows * 32,) int8
     row_off: np.ndarray  # (ngroups + 1,) int32
     lens: np.ndarray  # (ngroups * 32,) int32, 0 for empty lanes
-    ids: np.ndarray  # (n,) record ids, in lane order
+    long_db: np.ndarray  # (long residues,) int8
+    long_off: np.ndarray  # (nlong + 1,) int32
+    ids: np.ndarray  # (n,) record ids: long records, then lane order
+    slots: np.ndarray  # (n,) their places in the kernel's output
+
+    @property
+    def arrays(self) -> tuple:
+        """The kernel's arguments after the two profiles."""
+        return self.db, self.row_off, self.lens, self.long_db, self.long_off
 
 
-def pack_groups(db, ids: np.ndarray) -> GroupPack:
-    """Pack records ``ids`` (length-sorted by the caller) in groups of 32.
+def bucket(n: int) -> int:
+    """``n`` rounded up to the next of 8..16 x 2**k (exact below 16).
 
-    Each group's length is its longest record rounded up to 8.
+    Packed shapes are rounded to these sizes, eight per doubling and at
+    most 12.5% over, so that a few compiled kernels serve every chunk.
+    """
+    k = max(0, int(n).bit_length() - 4)
+    return -(-int(n) >> k) << k
+
+
+def pack_groups(db, ids: np.ndarray, long_record: int | None = None) -> GroupPack:
+    """Pack records ``ids`` (length-sorted by the caller) for the kernel.
+
+    Records longer than ``long_record`` (default ``LONG_RECORD``) go to the
+    long kernel; the rest in groups of 32, each group's length its longest
+    record rounded up to 8. Every count and size is rounded up by
+    :func:`bucket` (at least 1): the extra groups and long records are
+    empty and the extra residues are never read.
     """
     from ..utils.native_io import pack_batch
 
+    cut = LONG_RECORD if long_record is None else long_record
     ids = np.asarray(ids, dtype=np.int64)
+    is_long = db.lengths[ids] > cut
+    long_ids, ids = ids[is_long], ids[~is_long]
+
+    nl = len(long_ids)
+    long_off = np.zeros(bucket(max(nl, 1)) + 1, dtype=np.int64)
+    np.cumsum(db.lengths[long_ids], out=long_off[1 : nl + 1])
+    long_off[nl + 1 :] = long_off[nl]
+    long_db = np.zeros(bucket(max(int(long_off[-1]), 1)), dtype=np.int8)
+    for k, i in enumerate(long_ids):
+        long_db[long_off[k] : long_off[k + 1]] = db.record(int(i))
+
     n = len(ids)
     ngroups = -(-n // LANES)
-    lens = np.zeros(ngroups * LANES, dtype=np.int32)
+    lens = np.zeros(bucket(max(ngroups, 1)) * LANES, dtype=np.int32)
     lens[:n] = db.lengths[ids]
-    glen = lens.reshape(ngroups, LANES).max(axis=1, initial=0)
+    glen = lens.reshape(-1, LANES).max(axis=1, initial=0)
     glen = -(-glen // 8) * 8
-    row_off = np.zeros(ngroups + 1, dtype=np.int64)
+    row_off = np.zeros(len(glen) + 1, dtype=np.int64)
     np.cumsum(glen, out=row_off[1:])
-    if row_off[-1] * LANES >= 2**31:
-        raise ValueError("chunk too large for int32 row offsets")
-    flat = np.empty(int(row_off[-1]) * LANES, dtype=np.int8)
+    rows = bucket(max(int(row_off[-1]), 1))
+    if max(rows * LANES, len(long_db)) >= 2**31:
+        raise ValueError("chunk too large for int32 offsets")
+    flat = np.empty(rows * LANES, dtype=np.int8)
     rows = flat.reshape(-1, LANES)
     for g in range(ngroups):
         a, b = int(row_off[g]), int(row_off[g + 1])
         if b > a:
             pack_batch(db, ids[g * LANES : (g + 1) * LANES], LANES, b - a,
                        out=rows[a:b])
+    nlong_slots = len(long_off) - 1
     return GroupPack(
-        db=flat, row_off=row_off.astype(np.int32), lens=lens, ids=ids
+        db=flat, row_off=row_off.astype(np.int32), lens=lens,
+        long_db=long_db, long_off=long_off.astype(np.int32),
+        ids=np.concatenate([long_ids, ids]),
+        slots=np.concatenate([np.arange(nl), nlong_slots + np.arange(n)]),
     )
 
 
@@ -189,45 +268,66 @@ def ensure_registered() -> None:
 
 
 @functools.partial(jax.jit, static_argnames=("go", "ge"))
-def _ffi_score(prof, db, row_off, lens, *, go, ge):
+def _ffi_score(prof, lprof, db, row_off, lens, long_db, long_off, *, go, ge):
     nb = 2 * db.shape[0] if prof.shape[0] > 1 else 2
-    out, _ = jax.ffi.ffi_call(
+    nlb = 2 * long_db.shape[0] if lprof.shape[0] > 1 else 2
+    out, _, _ = jax.ffi.ffi_call(
         TARGET,
         (
-            jax.ShapeDtypeStruct(lens.shape, jnp.int32),
-            jax.ShapeDtypeStruct((nb,), jnp.int32),  # strip boundary scratch
+            jax.ShapeDtypeStruct(
+                (long_off.shape[0] - 1 + lens.shape[0],), jnp.int32
+            ),
+            jax.ShapeDtypeStruct((nb,), jnp.int32),  # strip boundaries
+            jax.ShapeDtypeStruct((nlb,), jnp.int32),  # long pass boundaries
         ),
-    )(prof, db, row_off, lens, go=np.int32(go), ge=np.int32(ge))
+    )(prof, lprof, db, row_off, lens, long_db, long_off,
+      go=np.int32(go), ge=np.int32(ge))
     return out
 
 
-_COMPILED: dict = {}
+# Compiled kernels, least recently used first. Packed shapes come in
+# bucket() sizes, so a scan reuses a handful of entries; the bound keeps a
+# long-lived process from holding one per query length forever.
+_COMPILED: collections.OrderedDict = collections.OrderedDict()
+MAX_COMPILED = 32
 
 
-def compile_kernel(prof, db, row_off, lens, *, go: int, ge: int):
+def compile_kernel(*args, go: int, ge: int):
     """The kernel compiled for these device arrays' shapes and device.
 
-    Returns ``run(prof, db, row_off, lens) -> (ngroups * 32,)`` int32
-    scores, where ``prof`` is :func:`strip_profile`'s output and the rest
-    are a GroupPack's arrays. The CPU tests replace this function with one
+    ``args`` are :func:`query_profiles`' two profiles and a GroupPack's
+    ``arrays``. Returns ``run(*args)``, the int32 scores in the layout
+    GroupPack describes. The CPU tests replace this function with one
     returning :func:`reference_kernel`.
     """
     ensure_registered()
     key = (
-        prof.shape, db.shape, row_off.shape, str(prof.devices()),
+        tuple(a.shape for a in args), str(args[0].devices()),
         int(go), int(ge),
     )
     run = _COMPILED.get(key)
     if run is None:
-        run = _ffi_score.lower(
-            prof, db, row_off, lens, go=int(go), ge=int(ge)
-        ).compile()
+        run = _ffi_score.lower(*args, go=int(go), ge=int(ge)).compile()
         _COMPILED[key] = run
+        if len(_COMPILED) > MAX_COMPILED:
+            _COMPILED.popitem(last=False)
+    _COMPILED.move_to_end(key)
     return run
 
 
-def reference_kernel(prof, db, row_off, lens, *, go: int, ge: int):
-    """NumPy model of the CUDA kernel's loop nest, vectorized over lanes.
+def reference_kernel(
+    prof, lprof, db, row_off, lens, long_db, long_off, *, go: int, ge: int
+):
+    """NumPy model of the CUDA kernels' loop nests, in the output layout
+    of GroupPack: :func:`_reference_long`, then :func:`_reference_groups`."""
+    return np.concatenate([
+        _reference_long(lprof, long_db, long_off, go, ge),
+        _reference_groups(prof, db, row_off, lens, go, ge),
+    ])
+
+
+def _reference_groups(prof, db, row_off, lens, go, ge):
+    """sw_score_kernel, vectorized over lanes.
 
     Same strips, same register state per strip (Gg, E per row), same
     boundary array layout (``bnd[(row_off[g] + j) * 32 + lane]`` holds the
@@ -278,3 +378,60 @@ def reference_kernel(prof, db, row_off, lens, *, go: int, ge: int):
                 bnd[idx[act], 0] = above[act]
                 bnd[idx[act], 1] = f[act]
     return best
+
+
+def _reference_long(lprof, long_db, long_off, go, ge):
+    """sw_long_kernel, one record at a time, vectorized over the lanes.
+
+    Same passes, same per-lane rows, the same step t at which lane l works
+    on position t - l, the same shuffle of (Gg, F') from lane l - 1, the
+    same pass boundary and the same rearranged G-form.
+    """
+    lprof = np.asarray(lprof, dtype=np.int32)
+    long_db = np.asarray(long_db)
+    npasses, rows, _ = lprof.shape
+    rr = rows // LANES
+    go, ge = np.int32(go), np.int32(ge)
+    neg = np.int32(-(1 << 29))
+    lane = np.arange(LANES)
+    out = np.zeros(len(long_off) - 1, dtype=np.int32)
+    for r in range(len(out)):
+        o, n = int(long_off[r]), int(long_off[r + 1] - long_off[r])
+        if n == 0:
+            continue
+        rec = long_db[o : o + n].astype(np.int64)
+        bnd = np.zeros((n, 2), dtype=np.int32)
+        best = np.zeros(LANES, dtype=np.int32)
+        for s in range(npasses):
+            p = lprof[s].reshape(LANES, rr, 32)
+            gg = np.full((rr, LANES), go, dtype=np.int32)
+            e = np.full((rr, LANES), neg, dtype=np.int32)
+            diag_top = np.full(LANES, go, dtype=np.int32)
+            bot_g = np.full(LANES, go, dtype=np.int32)
+            bot_f = np.full(LANES, go, dtype=np.int32)
+            for t in range(n + LANES - 1):
+                j = t - lane
+                act = (j >= 0) & (j < n)
+                above, f = np.roll(bot_g, 1), np.roll(bot_f, 1)
+                above[0] = f[0] = go
+                if s > 0 and t < n:
+                    above[0], f[0] = bnd[t]
+                c = rec[np.clip(j, 0, n - 1)]
+                diag = diag_top
+                diag_top = np.where(act, above, diag_top)
+                cb = np.full(LANES, neg, dtype=np.int32)
+                for k in range(rr):
+                    h = diag + p[lane, k, c]
+                    diag = gg[k].copy()
+                    e[k] = np.where(act, np.maximum(e[k] + ge, gg[k]), e[k])
+                    x = np.maximum(np.maximum(h, e[k]), 0) + go
+                    gg[k] = np.where(act, np.maximum(f + go, x), gg[k])
+                    f = np.maximum(f + ge, x)
+                    cb = np.maximum(cb, h)
+                best = np.where(act, np.maximum(best, cb), best)
+                bot_g = np.where(act, gg[rr - 1], bot_g)
+                bot_f = np.where(act, f, bot_f)
+                if s < npasses - 1 and 0 <= t - (LANES - 1) < n:
+                    bnd[t - (LANES - 1)] = bot_g[-1], bot_f[-1]
+        out[r] = best.max()
+    return out

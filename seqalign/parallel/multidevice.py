@@ -102,10 +102,9 @@ def multi_device_search(
         prepared = []
         for dev, ids in work:
             if eng == "cuda":
-                pack, run = pipeline._cuda_prepare(
+                prepared.append(pipeline._cuda_prepare(
                     profiles, db, ids, go, ge, device=dev
-                )
-                prepared.append(([pack.ids], run))
+                ))
             else:
                 runs = [
                     pipeline._wavefront_prepare(
@@ -121,12 +120,12 @@ def multi_device_search(
         outs = [run() for _, run in prepared]  # enqueue on every device
         outs = [[np.asarray(o) for o in out] for out in outs]
         kernel_time += time.perf_counter() - t0
-        for (groups, _), out in zip(prepared, outs):
-            if eng == "cuda":
+        for (layout, _), out in zip(prepared, outs):
+            if eng == "cuda":  # layout: the GroupPack
                 for q, o in enumerate(out):
-                    scores[q, groups[0]] = o[: len(groups[0])]
-            else:
-                for q, (ids_q, batches) in enumerate(zip(groups, out)):
+                    scores[q, layout.ids] = o[layout.slots]
+            else:  # layout: each query's batches of record ids
+                for q, (ids_q, batches) in enumerate(zip(layout, out)):
                     for ids, o in zip(ids_q, batches):
                         scores[q, ids] = o[: len(ids)]
     return (scores if multi else scores[0]), kernel_time

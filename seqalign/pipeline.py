@@ -132,20 +132,22 @@ def _cuda_prepare(profiles, db, ids, go, ge, device=None):
     kernel for each query's shape, outside any timed region.
 
     Returns (pack, run) where ``run()`` enqueues one dispatch per query and
-    returns the device results, each ``(ngroups * 32,)`` in pack order.
+    returns the device results, each in the layout of ``pack`` (record
+    ``pack.ids[i]`` at ``pack.slots[i]``).
     """
     import jax
 
     from .ops import swa_cuda
 
     pack = swa_cuda.pack_groups(db, ids)
-    dev = [jax.device_put(x, device)
-           for x in (pack.db, pack.row_off, pack.lens)]
-    profs = [jax.device_put(swa_cuda.strip_profile(p, go), device)
-             for p in profiles]
-    jax.block_until_ready(dev + profs)
-    runs = [swa_cuda.compile_kernel(p, *dev, go=go, ge=ge) for p in profs]
-    return pack, lambda: [r(p, *dev) for r, p in zip(runs, profs)]
+    dev = [jax.device_put(x, device) for x in pack.arrays]
+    profs = [
+        [jax.device_put(x, device) for x in swa_cuda.query_profiles(p, go)]
+        for p in profiles
+    ]
+    jax.block_until_ready([dev, profs])
+    runs = [swa_cuda.compile_kernel(*p, *dev, go=go, ge=ge) for p in profs]
+    return pack, lambda: [r(*p, *dev) for r, p in zip(runs, profs)]
 
 
 def _cuda_search(profiles, db, go, ge, order, checkpoint_dir=None):
@@ -180,10 +182,9 @@ def _cuda_search(profiles, db, go, ge, order, checkpoint_dir=None):
         t0 = time.perf_counter()
         outs = [np.asarray(o) for o in run()]
         kernel_time += time.perf_counter() - t0
-        chunk_scores = np.stack([o[: len(chunk)] for o in outs])
-        scores[:, pack.ids] = chunk_scores
+        scores[:, pack.ids] = np.stack([o[pack.slots] for o in outs])
         if ckpt is not None:
-            ckpt.save(start, chunk_scores)
+            ckpt.save(start, scores[:, chunk])
     return scores, kernel_time
 
 

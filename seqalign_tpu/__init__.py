@@ -1,20 +1,57 @@
-"""seqalign_tpu: TPU-native Smith-Waterman database-search engine.
+"""The package's former import name, forwarding to :mod:`seqalign`.
 
-A from-scratch JAX/Pallas re-design of the capabilities of the reference
-AVX2/OpenMP C engine (Aseeef/seq-align-gpu): one-to-many local alignment
-(Smith-Waterman with affine gaps, Gotoh formulation), score-exact to the
-reference, batched inter-sequence on TPU vector lanes and sharded
-data-parallel across chips/hosts.
-
-Layers (mirroring SURVEY.md §1):
-  models/   - scoring model, alphabet codec, substitution matrices (L1)
-  ops/      - the DP engines: NumPy oracle, XLA paths, Pallas TPU kernel (L2)
-  utils/    - FASTA IO, batch packing/bucketing, timing (L0/L3 support)
-  parallel/ - device mesh sharding and multi-host search (new capability)
-  pipeline  - query-vs-database driver (L3)
-  cli       - `smith_waterman`-compatible command line tool (L4)
+Existing ``import`` lines and ``python -m <former name>.cli`` keep working:
+every submodule imported under this name is the ``seqalign`` module itself,
+not a second copy, so both names share one state.
 """
 
-__version__ = "0.1.0"
+import importlib
+import importlib.abc
+import importlib.util
+import sys
 
-from .models import ScoringModel, default_scoring, sw_default_scoring  # noqa: F401
+from seqalign import *  # noqa: F401,F403
+from seqalign import __version__  # noqa: F401
+
+_PREFIX = __name__ + "."
+
+
+def _real(name: str) -> str:
+    return "seqalign." + name[len(_PREFIX):]
+
+
+class _Forward(importlib.abc.MetaPathFinder, importlib.abc.Loader):
+    """Imports ``<former name>.x`` as ``seqalign.x`` under both names."""
+
+    def __init__(self):
+        self._specs = {}
+
+    def find_spec(self, name, path=None, target=None):
+        if not name.startswith(_PREFIX):
+            return None
+        real = importlib.util.find_spec(_real(name))
+        if real is None:
+            return None
+        return importlib.util.spec_from_loader(
+            name, self, origin=real.origin,  # python -m sets argv[0] to it
+            is_package=real.submodule_search_locations is not None,
+        )
+
+    def create_module(self, spec):
+        module = importlib.import_module(_real(spec.name))
+        self._specs[module.__name__] = module.__spec__
+        return module
+
+    def exec_module(self, module):
+        # Already executed under its own name; the import machinery set
+        # the forwarding spec on it, so give it its own back.
+        module.__spec__ = self._specs.pop(module.__name__)
+
+    def get_code(self, name):
+        """The real module's code, for ``python -m``."""
+        real = importlib.util.find_spec(_real(name))
+        return real.loader.get_code(real.name)
+
+
+if not any(isinstance(f, _Forward) for f in sys.meta_path):
+    sys.meta_path.insert(0, _Forward())

@@ -15,18 +15,17 @@ from seqalign.pipeline import _db_from_encoded
 from conftest import random_protein
 
 
-def _model_scores(sc, q, encoded, max_rows):
+def _model_scores(sc, q, encoded, max_rows, long_record=None):
     db = _db_from_encoded(encoded)
     order = np.argsort(-db.lengths, kind="stable")
-    pack = swa_cuda.pack_groups(db, order)
-    prof = swa_cuda.strip_profile(make_profile(sc.table, q),
-                                  sc.gap_open_total, max_rows)
+    pack = swa_cuda.pack_groups(db, order, long_record)
+    profs = swa_cuda.query_profiles(make_profile(sc.table, q),
+                                    sc.gap_open_total, max_rows)
     out = swa_cuda.reference_kernel(
-        prof, pack.db, pack.row_off, pack.lens,
-        go=sc.gap_open_total, ge=sc.gap_extend,
+        *profs, *pack.arrays, go=sc.gap_open_total, ge=sc.gap_extend,
     )
     scores = np.zeros(db.n, dtype=np.int32)
-    scores[pack.ids] = out[: db.n]
+    scores[pack.ids] = out[pack.slots]
     return scores
 
 
@@ -49,6 +48,21 @@ def test_model_matches_oracle(rng, blosum62, max_rows, delta):
     )
 
 
+@pytest.mark.parametrize("lq", [1, 31, 33, 144, 257])
+def test_long_model_matches_oracle(rng, blosum62, lq):
+    """The long kernel's model (one warp per record, the lanes splitting
+    the query rows) around pass and lane boundaries: 257 rows take two
+    passes. Records of length 0 to 60, all but the shortest long."""
+    q = blosum62.query_indices(random_protein(rng, lq))
+    encoded = [encode(random_protein(rng, int(n)))
+               for n in (0, 1, 2, 11, 12, 60, *rng.integers(0, 60, 14))]
+    want = sw_score_batch(q, encoded, blosum62.table, blosum62.gap_open,
+                          blosum62.gap_extend)
+    np.testing.assert_array_equal(
+        _model_scores(blosum62, q, encoded, 48, long_record=2), want
+    )
+
+
 @pytest.mark.parametrize("gaps", [(0, 0), (-10, -1), (0, -3)])
 def test_model_gap_systems(rng, gaps):
     sc = load_builtin("PAM250", ScoringModel(
@@ -58,6 +72,9 @@ def test_model_gap_systems(rng, gaps):
                for _ in range(40)]
     want = sw_score_batch(q, encoded, sc.table, sc.gap_open, sc.gap_extend)
     np.testing.assert_array_equal(_model_scores(sc, q, encoded, 8), want)
+    np.testing.assert_array_equal(
+        _model_scores(sc, q, encoded, 8, long_record=20), want
+    )
 
 
 def test_model_ignores_padding_scores(rng):
@@ -83,6 +100,24 @@ def test_strip_shape(lq, want):
     assert (n, r) == want and r in swa_cuda.STRIP_HEIGHTS and n * r >= lq
 
 
+@pytest.mark.parametrize("lq,want", [
+    (1, (1, 1)), (17, (1, 1)), (33, (1, 2)), (144, (1, 5)), (256, (1, 8)),
+    (257, (2, 5)), (1000, (4, 8)), (5478, (22, 8)),
+])
+def test_long_shape(lq, want):
+    n, r = swa_cuda.long_shape(lq)
+    assert (n, r) == want and r in swa_cuda.LONG_HEIGHTS
+    assert n * r * swa_cuda.LANES >= lq
+
+
+def test_long_profile_layout(blosum62):
+    prof = make_profile(blosum62.table, np.arange(40) % 20 + 1)  # 40 rows
+    lp = swa_cuda.long_profile(prof, -3)  # one pass, 2 rows per lane
+    assert lp.shape == (1, 64, 32) and lp.dtype == np.int32
+    assert lp[0, 39, 7] == prof[39, 7] + 3
+    assert (lp[0, 40:] == swa_cuda.PAD_ROW).all()
+
+
 def test_strip_profile_layout(blosum62):
     prof = make_profile(blosum62.table, np.arange(1, 11))
     sp = swa_cuda.strip_profile(prof, -3, max_rows=4)  # 3 strips of 4
@@ -104,6 +139,89 @@ def test_pack_groups_layout(rng):
     assert (rows[9:40, 1] == 31).all()  # '*' padding
     np.testing.assert_array_equal(rows[40:43, 0], encoded[order[32]])
     assert pack.lens[35:].sum() == 0  # empty lanes of the last group
+
+
+def test_pack_groups_long_records(rng):
+    """Records over the cut lie back to back for the long kernel; the
+    output slots put them first, then the group lanes."""
+    lens = [50, 3, 70, 10, 5]
+    encoded = [encode(random_protein(rng, n)) for n in lens]
+    db = _db_from_encoded(encoded)
+    order = np.argsort(-db.lengths, kind="stable")  # 2, 0, 3, 4, 1
+    pack = swa_cuda.pack_groups(db, order, long_record=40)
+    assert pack.ids.tolist() == [2, 0, 3, 4, 1]
+    assert pack.long_off.tolist() == [0, 70, 120]
+    np.testing.assert_array_equal(pack.long_db[:70], encoded[2])
+    np.testing.assert_array_equal(pack.long_db[70:120], encoded[0])
+    assert pack.slots.tolist() == [0, 1, 2, 3, 4]  # 2 long slots, lanes
+    assert pack.lens.tolist()[:3] == [10, 5, 3]
+    nolong = swa_cuda.pack_groups(db, order)
+    assert nolong.long_off.tolist() == [0, 0]  # one empty long slot
+    assert nolong.slots.tolist() == [1, 2, 3, 4, 5]
+
+
+def test_bucket():
+    """Eight sizes per doubling, never below n, at most 12.5% above."""
+    ns = np.arange(0, (1 << 16) + 1)
+    b = np.array([swa_cuda.bucket(int(n)) for n in ns])
+    assert (b >= ns).all() and (b[16:] <= ns[16:] * 1.125).all()
+    assert (b[:16] == ns[:16]).all()
+    # (2**15, 2**16]: one doubling, eight sizes.
+    assert len(np.unique(b[(1 << 15) + 1 :])) == 8
+
+
+def test_chunks_of_different_sizes_share_one_kernel(rng, monkeypatch):
+    """Packed shapes come in bucket sizes, so chunks that differ a little
+    reuse one compiled kernel; the cache of compiled kernels is bounded."""
+    import collections
+
+    import jax
+
+    compiles = []
+
+    class Lowered:
+        def compile(self):
+            compiles.append(1)
+            return object()
+
+    class Jitted:
+        def lower(self, *args, **kwargs):
+            return Lowered()
+
+    monkeypatch.setattr(swa_cuda, "ensure_registered", lambda: None)
+    monkeypatch.setattr(swa_cuda, "_ffi_score", Jitted())
+    monkeypatch.setattr(swa_cuda, "_COMPILED", collections.OrderedDict())
+    monkeypatch.setattr(swa_cuda, "MAX_COMPILED", 2)
+    profs = [jax.device_put(p)
+             for p in swa_cuda.query_profiles(np.zeros((10, 32)), -3)]
+
+    def compile_for(n, length):
+        db = _db_from_encoded([np.ones(length, np.int8)] * n)
+        pack = swa_cuda.pack_groups(db, np.arange(n))
+        dev = [jax.device_put(x) for x in pack.arrays]
+        return swa_cuda.compile_kernel(*profs, *dev, go=-3, ge=-1)
+
+    first = compile_for(33 * 32, 10)  # 33 groups of 16 rows
+    assert compile_for(34 * 32 - 5, 10) is first  # 34 groups: same bucket
+    assert len(compiles) == 1
+    compile_for(200, 300)
+    compile_for(5000, 40)
+    assert len(compiles) == 3 and len(swa_cuda._COMPILED) == 2
+
+
+def test_synth_long_tail():
+    """The stand-in database reaches Swiss-Prot's longest entry: its 1,000
+    longest records fall from 35,213 to 3,000 residues, longest first."""
+    from seqalign.utils import synth
+
+    tail = synth.long_tail()
+    assert tail[0] == 35_213 and tail[-1] == 3_000 and len(tail) == 1000
+    assert (np.diff(tail) <= 0).all()
+    db = synth.swissprot_like(20_000, seed=1)
+    top = np.sort(db.lengths)[::-1]
+    np.testing.assert_array_equal(top[:1000], tail)
+    assert top[1000] < 3_000 and db.lengths.min() >= 2
+    assert len(db.seq) == db.offsets[-1] == db.lengths.sum()
 
 
 def test_chunk_bounds():

@@ -53,6 +53,38 @@ def test_cuda_matches_wavefront(gpu, rng, pam250, lq):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("lq", [17, 144])
+def test_cuda_long_records(gpu, rng, pam250, lq):
+    """Records as long as Swiss-Prot's longest entry (35,213 residues)
+    beside short ones, against the wavefront."""
+    from seqalign.pipeline import _db_from_encoded, search_database
+
+    q = pam250.query_indices(random_protein(rng, lq))
+    enc, _ = _db(rng, 60, 1, 400)
+    enc += [encode(random_protein(rng, n)) for n in (35_213, 12_000, 3_001)]
+    db = _db_from_encoded(enc)
+    got, _ = search_database(q, db, pam250, engine="cuda")
+    want, _ = search_database(q, db, pam250, engine="wavefront")
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("lq", [1, 33, 144, 257, 600])
+def test_cuda_long_kernel_matches_oracle(gpu, rng, blosum62, monkeypatch,
+                                         lq):
+    """Every record but the shortest through the warp-per-record kernel,
+    one to three passes."""
+    from seqalign.ops import swa_cuda
+    from seqalign.pipeline import search_database
+
+    monkeypatch.setattr(swa_cuda, "LONG_RECORD", 8)
+    q = blosum62.query_indices(random_protein(rng, lq))
+    enc, db = _db(rng, 50, 0, 300)
+    got, _ = search_database(q, db, blosum62, engine="cuda")
+    want = sw_score_batch(q, enc, blosum62.table, blosum62.gap_open,
+                          blosum62.gap_extend)
+    np.testing.assert_array_equal(got, want)
+
+
 def test_cuda_chunks_and_queries(gpu, rng, blosum62, monkeypatch):
     """Several chunks per scan and several queries per packed chunk."""
     from seqalign.ops import swa_cuda
